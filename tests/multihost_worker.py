@@ -4,9 +4,9 @@ NOT a test file: tests/test_multihost.py spawns two of these with distinct
 JAX_PROCESS_ID against one localhost coordinator. Each worker initializes
 jax.distributed through tpu_ray_tracer.parallel.multihost, builds the
 global pixel mesh spanning BOTH processes' devices, renders a sharded frame
-through the fused Pallas kernel, runs one distributed train step (gradient
-psum across processes over gloo), and writes a JSON result the test
-asserts on.
+through the fused kernel (Pallas interpreter on CPU), runs one distributed
+train step (gradient psum across processes over gloo), and writes a JSON
+result the test asserts on.
 """
 
 import dataclasses
@@ -21,7 +21,6 @@ outdir = sys.argv[4]
 
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
-os.environ.setdefault("TRT_PALLAS_INTERPRET", "1")
 # initialize_distributed reads the standard environment
 os.environ["JAX_COORDINATOR_ADDRESS"] = f"localhost:{port}"
 os.environ["JAX_NUM_PROCESSES"] = str(nproc)
@@ -32,7 +31,9 @@ sys.path.insert(0, REPO)
 
 import jax  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/trt_jax_cache")
+from tpu_ray_tracer.utils.cache import configure_compile_cache  # noqa: E402
+
+configure_compile_cache()
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -65,8 +66,9 @@ camera = trt.Camera(
     pitch_deg=jnp.asarray(0.0, jnp.float32),
 )
 
-# --- sharded forward across BOTH processes, fused Pallas kernel per device
-img = render_image_sharded(scene, camera, mesh, config, backend="pallas")
+# --- sharded forward across BOTH processes, fused kernel per device
+img = render_image_sharded(scene, camera, mesh, config, backend="pallas",
+                           interpret=True)
 full = np.asarray(multihost_utils.process_allgather(img, tiled=True))
 golden = render_image_np(scene)
 bad_frac = float((np.abs(full - golden).max(-1) > 2.0 / 255.0).mean())
@@ -75,7 +77,7 @@ bad_frac = float((np.abs(full - golden).max(-1) > 2.0 / 255.0).mean())
 start, n_rows = host_local_rows(scene.height, mesh)
 
 # --- one distributed train step: grad psum crosses the process boundary
-problem = InverseProblem(scene_template=scene, config=config, backend="pallas")
+problem = InverseProblem(scene_template=scene, config=config)
 params = extract_params(scene.astype(config.dtype))
 params = {k: jnp.asarray(v) * 0.6 for k, v in params.items()}
 optimizer = problem.optimizer()
@@ -91,7 +93,7 @@ moved = bool(any(
 ))
 
 # --- checkpoint while distributed: fit() with a SHARED checkpoint path on
-# every process. The save must be process-0-gated (VERDICT r3 weak #4) —
+# every process. The save must be process-0-gated —
 # ungated, both processes would race np.savez on one file. The spy counts
 # local save invocations; the collective inside each train step serializes
 # the loop across processes, so the count is race-free.

@@ -1,8 +1,8 @@
-"""Degenerate and fallback scene shapes (VERDICT r4 #2).
+"""Degenerate and fallback scene shapes.
 
-The load-bearing docstring claims — the > 31-light gradient fallback
-(``_diff_bwd`` XLA recompute), the zero-light scene, and the zero-object
-scene — previously had no test constructing such a scene anywhere. The
+Scenes with more than 31 lights (the kernel's gradient recomputes through
+XLA, ``_diff_bwd``), no lights, or no objects each get a scene built here.
+The
 reference REQUIRES both sequence keys to be present (check_sequence throws
 ``undefined_value`` on an absent key, reference: src/scene.cpp:56-66) but
 iterates EMPTY sequences zero times (src/scene.cpp:169-170) — so
@@ -11,12 +11,9 @@ and this loader replicates both sides of that contract.
 """
 
 import dataclasses
-import os
 
 import numpy as np
 import pytest
-
-os.environ.setdefault("TRT_PALLAS_INTERPRET", "1")
 
 import tpu_ray_tracer as trt
 from tpu_ray_tracer.models import light as light_mod
@@ -67,16 +64,16 @@ def _scene_many_lights(n=33, width=64, height=32):
 
 
 def test_33_light_forward_parity(jaxmod):
-    """Forward render with 33 lights (beyond the 31-bit occlusion bitmask):
-    the kernel's light sweep has no 31-light limit — only the fused
-    BACKWARD does — so the forward must still match the f64 oracle."""
+    """Forward render with 33 lights (more than one 32-bit word of lights):
+    the kernel's light sweep has no light-count limit, so the forward must
+    still match the f64 oracle."""
     jax, jnp = jaxmod
     from tpu_ray_tracer.render.pallas_backend import render_image_pallas
     from tpu_ray_tracer.render.reference_cpu import render_image_np
 
     scene = _scene_many_lights()
     assert scene.n_lights == 33
-    img = np.asarray(render_image_pallas(scene, _cam(jnp)))
+    img = np.asarray(render_image_pallas(scene, _cam(jnp), interpret=True))
     gold = render_image_np(scene)
     assert np.isfinite(img).all()
     err = np.abs(img - gold).max(axis=-1)
@@ -86,9 +83,9 @@ def test_33_light_forward_parity(jaxmod):
 
 def test_33_light_gradient_fallback_matches_xla(jaxmod):
     """jax.grad through render_image_pallas on a 33-light scene takes the
-    ``_diff_bwd`` XLA-recompute fallback (pallas_backend.py) — its gradients
-    must equal plain AD through the XLA pipeline, since that is literally
-    what the fallback recomputes."""
+    kernel's one VJP, the ``_diff_bwd`` XLA recompute — its gradients must
+    equal plain AD through the XLA pipeline, since that is literally what
+    it recomputes."""
     jax, jnp = jaxmod
     from tpu_ray_tracer.render.pallas_backend import render_image_pallas
     from tpu_ray_tracer.render.pipeline import RenderConfig, render_image
@@ -99,7 +96,8 @@ def test_33_light_gradient_fallback_matches_xla(jaxmod):
 
     def loss_pallas(light_color, coefs):
         s = dataclasses.replace(scene32, light_color=light_color, coefs=coefs)
-        return jnp.sum(render_image_pallas(s, cam, polish_iters=3, bounces=0))
+        return jnp.sum(render_image_pallas(s, cam, polish_iters=3, bounces=0,
+                                           interpret=True))
 
     config = RenderConfig(geom_dtype="float32", polish_iters=3, bounces=0,
                           chunk_px=None)
@@ -130,7 +128,7 @@ def test_zero_light_scene(jaxmod):
     scene = build_scene(64, 32, 60.0, _sphere_objects(), [],
                         bg_color=(0.25, 0.5, 0.75))
     assert scene.n_lights == 0
-    img = np.asarray(render_image_pallas(scene, _cam(jnp)))
+    img = np.asarray(render_image_pallas(scene, _cam(jnp), interpret=True))
     gold = render_image_np(scene)
     assert np.isfinite(img).all()
     err = np.abs(img - gold).max(axis=-1)
@@ -156,13 +154,13 @@ def test_zero_object_scene_forward_and_grad(jaxmod):
     assert scene.n_objects == 0
     scene32 = jax.tree.map(jnp.asarray, scene.astype(jnp.float32))
     cam = _cam(jnp)
-    img = np.asarray(render_image_pallas(scene32, cam))
+    img = np.asarray(render_image_pallas(scene32, cam, interpret=True))
     np.testing.assert_allclose(
         img, np.broadcast_to([0.3, 0.6, 0.9], img.shape), atol=1e-6)
 
     def loss(light_color):
         s = dataclasses.replace(scene32, light_color=light_color)
-        return jnp.sum(render_image_pallas(s, cam))
+        return jnp.sum(render_image_pallas(s, cam, interpret=True))
 
     g = np.asarray(jax.jit(jax.grad(loss))(scene32.light_color))
     assert np.isfinite(g).all()
@@ -187,8 +185,7 @@ def test_degenerate_scenes_through_cli(jaxmod, tmp_path, capsys):
         "    direction: [0, -1, 0]\n"
     )
     out = tmp_path / "empty.png"
-    rc = cli.main(["render", str(no_objects), "--backend", "pallas",
-                   "-o", str(out)])
+    rc = cli.main(["render", str(no_objects), "-o", str(out)])
     assert rc == 0 and out.exists()
 
     many = ["width: 32", "height: 16", "fov: 60", "objects:",
@@ -203,8 +200,7 @@ def test_degenerate_scenes_through_cli(jaxmod, tmp_path, capsys):
     many_yml = tmp_path / "many.yml"
     many_yml.write_text("\n".join(many) + "\n")
     out2 = tmp_path / "many.png"
-    rc = cli.main(["render", str(many_yml), "--backend", "pallas",
-                   "-o", str(out2), "--check"])
+    rc = cli.main(["render", str(many_yml), "-o", str(out2), "--check"])
     assert rc == 0 and out2.exists()
 
 
@@ -241,9 +237,8 @@ def test_zero_object_soft_render(jaxmod):
 
 
 def test_33_light_fit_routes_to_xla_and_descends(jaxmod):
-    """InverseProblem(backend='pallas') on a > 31-light scene must take the
-    XLA loss path (make_loss_fn's ``use_pallas`` gate) and still produce a
-    finite, descending optimization."""
+    """A fit on a > 31-light scene (gradients always take the XLA route)
+    produces a finite, descending optimization."""
     jax, jnp = jaxmod
     from tpu_ray_tracer.diff.inverse import InverseProblem, fit
     from tpu_ray_tracer.parallel.sharding import make_mesh, render_image_sharded
@@ -259,7 +254,7 @@ def test_33_light_fit_routes_to_xla_and_descends(jaxmod):
         scene, light_color=np.asarray(scene.light_color) * 0.5)
     problem = InverseProblem(
         scene_template=perturbed, config=config,
-        param_fields=("light_color",), learning_rate=5e-2, backend="pallas",
+        param_fields=("light_color",), learning_rate=5e-2,
     )
     params, losses = fit(problem, target, camera=_cam(jnp), steps=8,
                          mesh=mesh, log_every=0)
@@ -284,43 +279,8 @@ def test_plane_only_scene_pallas(jaxmod):
     lights = [light_mod.directional(1.5, (0.3, -1.0, 0.4), (1.0, 1.0, 1.0)),
               light_mod.spherical(40.0, (0.0, 3.0, 6.0), (1.0, 0.9, 0.8))]
     scene = build_scene(64, 32, 60.0, objs, lights, bg_color=(0.1, 0.1, 0.3))
-    img = np.asarray(render_image_pallas(scene, _cam(jnp)))
+    img = np.asarray(render_image_pallas(scene, _cam(jnp), interpret=True))
     gold = render_image_np(scene)
     assert np.isfinite(img).all()
     err = np.abs(img - gold).max(axis=-1)
     assert float((err > 2.0 / 255.0).mean()) <= 0.005
-
-
-def test_31_light_fused_backward_boundary(jaxmod):
-    """Exactly 31 lights — the last count the fused analytic backward's
-    occlusion bitmask encodes (bits 0-30). Gradients through the FUSED
-    path must match XLA AD; 32+ takes the recompute fallback (covered by
-    the 33-light test above)."""
-    jax, jnp = jaxmod
-    from tpu_ray_tracer.render.pallas_backend import render_image_pallas
-    from tpu_ray_tracer.render.pipeline import RenderConfig, render_image
-
-    scene = _scene_many_lights(n=31, width=24, height=8)
-    assert scene.n_lights == 31
-    scene32 = jax.tree.map(jnp.asarray, scene.astype(jnp.float32))
-    cam = _cam(jnp)
-
-    def loss_pallas(light_color):
-        s = dataclasses.replace(scene32, light_color=light_color)
-        # n_lights <= 31 and n_objects > 0: this IS the fused-backward path
-        return jnp.sum(render_image_pallas(s, cam, polish_iters=2, bounces=0))
-
-    config = RenderConfig(geom_dtype="float32", polish_iters=2, bounces=0,
-                          chunk_px=None)
-
-    def loss_xla(light_color):
-        s = dataclasses.replace(scene32, light_color=light_color)
-        return jnp.sum(render_image(s, cam, config))
-
-    g_p = np.asarray(jax.jit(jax.grad(loss_pallas))(scene32.light_color))
-    g_x = np.asarray(jax.jit(jax.grad(loss_xla))(scene32.light_color))
-    assert np.isfinite(g_p).all()
-    assert np.abs(g_p).max() > 0
-    scale = max(np.abs(g_x).max(), 1e-6)
-    assert np.abs(g_p - g_x).max() / scale < 5e-3, (
-        np.abs(g_p - g_x).max() / scale)

@@ -250,3 +250,75 @@ light_sources:
   - type: directional
     direction: [0, -1]
 """)
+
+
+def test_import_without_pyyaml():
+    """The package parses scenes with its own YAML subset parser: it imports
+    and loads a scene with ``yaml`` blocked."""
+    import subprocess
+    import sys
+
+    repo = scene_path("dingdong").rsplit("/scenes/", 1)[0]
+    code = (
+        "import sys; sys.modules['yaml'] = None\n"
+        "import tpu_ray_tracer as trt\n"
+        f"s = trt.load_from_file({scene_path('dingdong')!r})\n"
+        "assert (s.width, s.height, s.n_objects) == (1280, 720, 3)\n"
+        "assert 'yaml' not in [m for m in sys.modules if sys.modules[m]]\n"
+    )
+    env = dict(__import__("os").environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=repo)
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+@pytest.mark.parametrize("text,expected", [
+    # block mapping with a nested block sequence of mappings and a flow list
+    ("a:\n  - x: 1\n    y: [1, 2]\n  - z\n",
+     {"a": [{"x": "1", "y": ["1", "2"]}, "z"]}),
+    # flow mapping nested in a flow sequence; comments; quoted '#'
+    ("k: [{a: 1, b: 'p # q'}, []]  # trailing\n# whole-line\n",
+     {"k": [{"a": "1", "b": "p # q"}, []]}),
+    # sequence at the key's own indent, empty value, double-quoted escapes
+    ('s:\n- 1\n- 2\nn:\nq: "a\\"b"\n',
+     {"s": ["1", "2"], "n": "", "q": 'a"b'}),
+])
+def test_yaml_subset_structure(text, expected):
+    from tpu_ray_tracer.models import yaml_subset as ys
+
+    def plain(node):
+        if isinstance(node, ys.ScalarNode):
+            return node.value
+        if isinstance(node, ys.SequenceNode):
+            return [plain(c) for c in node.value]
+        return {k.value: plain(v) for k, v in node.value}
+
+    assert plain(ys.compose(text)) == expected
+
+
+def test_yaml_subset_marks():
+    """0-based marks as PyYAML's compose gives them: a value node starts at
+    its first character, a sequence item's mapping at its first key."""
+    from tpu_ray_tracer.models import yaml_subset as ys
+
+    root = ys.compose("w: 5\nobjects:\n  - {type: sphere}\n  - type: plane\n")
+    assert root.start_mark == (0, 0)
+    (_, w), (_, objs) = root.value
+    assert w.start_mark == (0, 3)
+    assert objs.start_mark == (2, 2)
+    assert objs.value[0].start_mark == (2, 4)
+    assert objs.value[1].start_mark == (3, 4)
+    assert objs.value[1].value[0][1].start_mark == (3, 10)
+
+
+@pytest.mark.parametrize("text", [
+    "a: [1, 2",          # unterminated flow sequence
+    "a: {b: 1",          # unterminated flow mapping
+    "a: [1] x",          # text after a flow value
+    "  a: 1\n b: 2",     # bad dedent
+    "a: 'open",          # unterminated quote
+])
+def test_yaml_subset_errors(text):
+    with pytest.raises(SceneError, match="YAML parser error"):
+        trt.load_from_string(text)

@@ -35,7 +35,9 @@ NATIVE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "tpu_ray_tracer", "native",
 )
-REFERENCE = os.environ.get("TRT_REFERENCE_DIR", "/root/reference")
+# a checkout of the reference (JaworWr/CUDA-ray-tracer) beside this one
+REFERENCE = os.path.join(os.path.dirname(NATIVE), os.pardir, os.pardir,
+                         "reference")
 BIN = os.path.join(NATIVE, "reference_oracle")
 
 

@@ -386,7 +386,7 @@ light_sources:
 
 
 def test_cross_object_ordering_boundary_descends_hard(jaxmod, tmp_path):
-    """Cross-object boundary probe (VERDICT r4 #5), measured POSITIVE: the
+    """Cross-object boundary probe, measured POSITIVE: the
     t-ORDERING boundary — sphere B poking through sphere A, so B's visible
     cap is bounded by the 3-D intersection curve where both objects keep
     real roots and only the nearest-hit order swaps — does NOT stall hard

@@ -1,4 +1,4 @@
-"""Cross-object soft-visibility probe (VERDICT r4 #5).
+"""Cross-object soft-visibility probe.
 
 Two geometries separate the two cross-object boundary types:
 
@@ -28,9 +28,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
 import jax
-
-jax.config.update("jax_compilation_cache_dir", "/tmp/trt_jax_cache")
-
 import jax.numpy as jnp
 import optax
 
@@ -38,6 +35,7 @@ import tpu_ray_tracer as trt
 from tpu_ray_tracer.diff.inverse import InverseProblem, make_loss_fn, pad_target
 from tpu_ray_tracer.models.surface import COEF_INDEX
 from tpu_ray_tracer.parallel.sharding import make_mesh, render_image_sharded
+from tpu_ray_tracer.utils.cache import configure_compile_cache
 from tpu_ray_tracer.render.pipeline import RenderConfig
 
 CI = COEF_INDEX["c"]
@@ -83,10 +81,7 @@ light_sources:
 def run_case(label, yaml_text, obj_idx, dc, steps, lr, soft_tau, tau_final):
     """Perturb object ``obj_idx``'s constant term by +dc and descend on the
     degree-<=2 sub-rows; report loss track + recovered constant."""
-    path = f"/tmp/probe_{label}.yml"
-    with open(path, "w") as f:
-        f.write(yaml_text)
-    scene = trt.load_from_file(path)
+    scene = trt.load_from_string(yaml_text)
     mesh = make_mesh()
     config = RenderConfig(geom_dtype="float32", polish_iters=2, bounces=0,
                           chunk_px=None)
@@ -138,6 +133,7 @@ def run_case(label, yaml_text, obj_idx, dc, steps, lr, soft_tau, tau_final):
 
 
 if __name__ == "__main__":
+    configure_compile_cache()
     t0 = time.perf_counter()
     # A: occluding silhouette — perturb FRONT sphere A's radius
     run_case("occl_soft", OCCLUDING_YAML, 0, +0.5, 200, 3e-3, 0.15, 0.005)

@@ -1,11 +1,11 @@
-"""tpu-ray-tracer: a TPU-native differentiable ray tracer in JAX/Pallas.
+"""tpu-ray-tracer: a differentiable ray tracer in JAX for NVIDIA GPUs.
 
 A from-scratch re-design of the capabilities of JaworWr/CUDA-ray-tracer
 (implicit algebraic surfaces of degree <= 3, analytic root solving, Lambertian
-shading with shadows and mirror reflections, YAML scenes) built TPU-first:
-vectorized batched math lowered by XLA, a fused Pallas tile kernel for the hot
-path, implicit-function-theorem custom VJPs for differentiability, and
-``shard_map`` pixel-grid sharding for multi-chip scaling.
+shading with shadows and mirror reflections, YAML scenes): vectorized batched
+math lowered by XLA, a fused Pallas kernel through Triton for the forward hot
+path on the GPU, implicit-function-theorem custom VJPs for differentiability,
+and ``shard_map`` pixel-grid sharding for multi-device scaling.
 """
 
 from .models.loader import load_from_file, load_from_string

@@ -8,8 +8,9 @@ match a target image (BASELINE.json config: recover clebsch.yml's surface
 coefficients + light parameters from a rendered target).
 
 Distributed layout: pixel rows sharded over the mesh, parameters replicated;
-the parameter-gradient all-reduce (``psum`` over ICI) is inserted by AD
-through ``shard_map`` and overlapped with the backward pass by XLA.
+the parameter-gradient all-reduce (``psum``) is inserted by AD through
+``shard_map``. Gradients always run ``jax.grad`` through the XLA pipeline
+(``render/route.py``).
 
 Checkpoint/resume (the reference has none — SURVEY.md §5) saves the
 optimized parameters + optimizer state as an .npz with tree-path keys.
@@ -44,9 +45,9 @@ def extract_params(scene: Scene, fields=DEFAULT_PARAM_FIELDS,
     The pseudo-field ``"camera"`` optimizes the camera pose itself (the
     ``Camera`` pytree — position, yaw, pitch) rather than a Scene table:
     the reference's fly camera IS a pose (src/ray-tracer.cpp:24-58), and
-    the fused backward kernel already emits full camera cotangents
-    (``_packed_bwd`` dcam rows 0-16), so pose estimation is a first-class
-    inverse problem. Pass the initial-guess ``camera`` when requesting it."""
+    the differentiable render carries cotangents back to it, so pose
+    estimation is a first-class inverse problem. Pass the initial-guess
+    ``camera`` when requesting it."""
     params = {}
     for name in fields:
         if name == "camera":
@@ -82,9 +83,6 @@ class InverseProblem:
     #                                 gradients spike at grazing hits, and a
     #                                 global clip pins the direction to those
     #                                 spikes — prefer per-coordinate Adam alone
-    backend: str = "xla"           # "pallas": fused fwd+bwd kernels per device
-    #                                 (including reflective scenes; > 31-light
-    #                                 scenes fall back to the XLA pipeline)
     soft_tau: float | None = None  # soft-visibility temperature: render the
     #                                 loss through diff/soft.py so descent can
     #                                 cross root-selection discontinuities
@@ -122,18 +120,10 @@ def _device_render(scene: Scene, camera, rows_local: int, config: RenderConfig,
                        polish_iters=config.polish_iters, bounces=bounces)
 
 
-def make_loss_fn(problem: InverseProblem, mesh, partition=None):
+def make_loss_fn(problem: InverseProblem, mesh):
     """Build ``loss(params, camera, target_padded) -> scalar`` with rows
     sharded over `mesh`. target_padded: [Hp, W, 3] (Hp = padded rows),
-    rows beyond scene.height are masked out of the loss.
-
-    ``partition`` (Pallas backend only): explicit (perm, n_cubic) solver
-    routing for the object table, e.g. derived from the CURRENT optimizer
-    iterate by ``fit``'s adaptive repartitioning. Routing only selects
-    which solve produces each root; the IFT backward applies the full
-    20-monomial basis either way, so gradients — including w.r.t. cubic
-    coefficients of objects routed through the quadric solve — are
-    identical to the conservative all-cubic routing, just cheaper."""
+    rows beyond scene.height are masked out of the loss."""
     from jax.sharding import PartitionSpec as P
 
     # jnp-ify the closed-over template: it never crosses a jit boundary, and
@@ -150,66 +140,23 @@ def make_loss_fn(problem: InverseProblem, mesh, partition=None):
     if problem.soft_tau is not None and bounces != 0:
         raise ValueError("soft_tau requires a bounce-free configuration")
     # Static per-object pair-kind routing for the soft blend: derived from
-    # the TEMPLATE (like the Pallas degree partition) so quadric-class
-    # objects keep the numerically accurate quadratic discriminant even
-    # when descent drifts their cubic entries off zero (diff/soft.py,
-    # pair_coverage docstring).
+    # the TEMPLATE so quadric-class objects keep the numerically accurate
+    # quadratic discriminant even when descent drifts their cubic entries
+    # off zero (diff/soft.py, pair_coverage docstring).
     pair_kinds = tuple(
         bool(x) for x in
         (np.abs(np.asarray(problem.scene_template.coefs)[:, :10]) > 0).any(1)
     ) if problem.soft_tau is not None else None
-    # The fused Pallas fwd+bwd pair covers the reflection chain; only
-    # > 31-light scenes (occlusion-bitmask width) and empty scenes must take
-    # the XLA pipeline, whose gradient is plain AD. The soft-visibility
-    # loss is an XLA-pipeline feature.
-    use_pallas = (problem.backend == "pallas"
-                  and problem.soft_tau is None
-                  and 0 < problem.scene_template.n_objects
-                  and problem.scene_template.n_lights <= 31)
-    if use_pallas:
-        # All-cubic identity partition whenever coefficients are optimized
-        # (a gradient step can turn a statically-quadric object cubic, which
-        # a frozen template partition would silently mis-render); otherwise
-        # the template's host-side partition is valid for the whole run.
-        # Light kinds are structural (is_spherical is never a parameter),
-        # so they are always specialized.
-        from ..render.pallas_backend import light_kinds_for_scene
-        kinds = light_kinds_for_scene(problem.scene_template)
-        if partition is not None:
-            # adaptive iterate: posdef stays None — unlike the permutation
-            # (which fit() rekeys every step), a posdef flag latched from
-            # one iterate could silently misclassify occlusion after a step
-            # deforms a sphere into an indefinite quadric
-            perm, n_cubic = partition
-            posdef = None
-        elif "coefs" in problem.param_fields:
-            perm, n_cubic, posdef = None, None, None
-        else:
-            from ..render.pallas_backend import (
-                partition_for_scene, posdef_for_scene,
-            )
-            perm, n_cubic = partition_for_scene(problem.scene_template)
-            posdef = posdef_for_scene(problem.scene_template)
 
     def device_loss(params, camera, target_local, tau=None):
         scene = apply_params(template, params)
         # pose optimization: the optimized camera overrides the fixed one
-        # (gradients chain through _pack_camera -> camera_frame to
-        # (position, yaw, pitch) cotangents automatically)
+        # (gradients chain through camera_frame to (position, yaw, pitch)
+        # cotangents automatically)
         camera = params.get("camera", camera)
-        idx = jax.lax.axis_index(AXIS)
-        y0 = idx * rows_local
-        if use_pallas:
-            from ..render.pallas_backend import render_rows_pallas
-            colors = render_rows_pallas(
-                scene, camera, y0, rows_local,
-                polish_iters=problem.config.polish_iters, bounces=bounces,
-                n_cubic=n_cubic, perm=perm, light_kinds=kinds,
-                posdef=posdef,
-            )
-        else:
-            colors = _device_render(scene, camera, rows_local, problem.config,
-                                    bounces, tau, pair_kinds=pair_kinds)
+        y0 = jax.lax.axis_index(AXIS) * rows_local
+        colors = _device_render(scene, camera, rows_local, problem.config,
+                                bounces, tau, pair_kinds=pair_kinds)
         # mask padded rows out of the squared error
         row_ids = y0 + jnp.arange(rows_local)
         valid = (row_ids < scene.height)[:, None, None]
@@ -251,12 +198,12 @@ def make_loss_fn(problem: InverseProblem, mesh, partition=None):
     return loss
 
 
-def make_train_step(problem: InverseProblem, mesh=None, partition=None):
+def make_train_step(problem: InverseProblem, mesh=None):
     """Build a jitted ``train_step(params, opt_state, camera, target) ->
     (params, opt_state, loss)`` with the gradient all-reduce over the mesh."""
     if mesh is None:
         mesh = make_mesh()
-    loss_fn = make_loss_fn(problem, mesh, partition=partition)
+    loss_fn = make_loss_fn(problem, mesh)
     optimizer = problem.optimizer()
 
     if problem.soft_tau is None:
@@ -330,32 +277,7 @@ def fit(problem: InverseProblem, target, camera=None, steps: int = 200,
             params, opt_state, step0 = restored
             print_fn(f"resumed from {checkpoint_path} at step {step0}")
 
-    # Adaptive solver repartitioning (Pallas + optimized coefficients): the
-    # degree partition is derived from the CURRENT iterate rather than
-    # pinned to the conservative all-cubic routing. A step that turns a
-    # quadric object cubic changes the partition key and transparently
-    # compiles a new specialization; iterates whose partition is stable
-    # (e.g. structured recoveries that never touch quadric objects' cubic
-    # entries) run the cheap routing for the whole fit. float(loss) below
-    # syncs every step anyway, so the host-side coefficient check is free.
-    adaptive = (problem.backend == "pallas" and problem.soft_tau is None
-                and "coefs" in problem.param_fields
-                and 0 < problem.scene_template.n_objects
-                and problem.scene_template.n_lights <= 31)
-    step_cache = {}
-
-    def step_fn_for(params):
-        if not adaptive:
-            key = None
-        else:
-            from ..render.pallas_backend import _degree_partition
-            key = _degree_partition(np.asarray(params["coefs"]))
-            key = (key[0] if isinstance(key[0], tuple)
-                   else tuple(int(i) for i in key[0]), key[1])
-        if key not in step_cache:
-            step_cache[key] = make_train_step(problem, mesh, partition=key)
-        return step_cache[key]
-
+    train_step = make_train_step(problem, mesh)
     target_padded = pad_target(jnp.asarray(target, jnp.float32), mesh,
                                problem.scene_template.height)
     taus = None
@@ -365,7 +287,6 @@ def fit(problem: InverseProblem, target, camera=None, steps: int = 200,
         taus = tau_schedule(problem.soft_tau, tau_final, steps)
     losses = []
     for step in range(step0, steps):
-        train_step = step_fn_for(params)
         if taus is not None:
             params, opt_state, loss = train_step(
                 params, opt_state, camera, target_padded, taus[step])
@@ -379,7 +300,7 @@ def fit(problem: InverseProblem, target, camera=None, steps: int = 200,
             # process-0-gated: in a multi-process job every process holds
             # identical replicated params/opt_state, and the checkpoint path
             # typically lives on a shared filesystem — ungated saves would
-            # race P concurrent np.savez writes on one file (VERDICT r3 #4)
+            # race P concurrent np.savez writes on one file
             if jax.process_index() == 0:
                 save_checkpoint(checkpoint_path, params, opt_state, step + 1)
     return params, losses

@@ -146,7 +146,7 @@ def pair_coverage(coefs, origin, dir, pair_kinds=None,
     saturates toward 0 over the whole sphere, and the blend leaks a
     visible fraction of branch B (object deleted) at any useful tau.
     Large-scene inverse problems should shrink ``quad_width`` (roughly
-    (r/D)^2/20) rather than raise tau (ADVICE r4)."""
+    (r/D)^2/20) rather than raise tau."""
     t3, t2, t1, t0 = ray_poly_coeffs(coefs, origin, dir)
     q, r, _s, _a, is_cubic = _normalized_qr(t3, t2, t1, t0)
     r2 = r * r

@@ -14,7 +14,7 @@ with monomials ordered::
 
 Unlike the reference (a C struct of 20 doubles), surfaces here are plain
 ``numpy`` vectors of shape ``[20]`` so a scene's objects stack into a single
-``[N, 20]`` coefficient matrix — the unit of work for the TPU intersection
+``[N, 20]`` coefficient matrix — the unit of work for the XLA intersection
 path, where ray->polynomial coefficient expansion becomes a ``[P, 20] @
 [20, N]`` contraction instead of a per-object scalar loop.
 

@@ -1,7 +1,7 @@
 """Native (C++) host-runtime components with ctypes bindings.
 
 The reference's host runtime is C++ (scene loading/validation via yaml-cpp,
-reference: src/scene.cpp); this package provides the TPU build's native
+reference: src/scene.cpp); this package provides this build's native
 equivalent: ``libtrtscene.so`` (scene_loader.cpp), a dependency-free C++
 scene parser + validator + surface/light factory that emits the same flat
 tables as the Python loader. Built on demand with the in-tree Makefile; the

@@ -2,7 +2,7 @@
 //
 // Plays the role of the reference's C++ loader stack (reference:
 // src/scene.cpp + yaml-cpp + src/surface.cpp + src/light.cpp) for the
-// TPU build's host-side runtime: parses a scene YAML (the subset the scene
+// package's host-side runtime: parses a scene YAML (the subset the scene
 // corpus uses: block/flow mappings and sequences, scalars, comments),
 // applies the reference's defaults and validation, evaluates the surface
 // factories (including the reference's clebsch z3-stays-zero quirk,

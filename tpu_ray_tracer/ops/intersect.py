@@ -42,7 +42,7 @@ def intersect_all(coefs, origin, dir, polish_iters: int = 0):
       origin: [..., 3] ray origins.
       dir: [..., 3] ray directions.
       polish_iters: Newton refinement steps (static; 0 for the f64 golden
-        path, ~2 for the f32 TPU path).
+        path, ~2 for the f32 fast path).
 
     Returns:
       t: [..., N] per the reference's return-value semantics (may be

@@ -8,7 +8,7 @@ the same expansion is expressed as four basis matrices: for a batch of rays,
 
 so the polynomial-in-t coefficients for *all* objects at once are batched
 contractions ``t_k = basis_k @ coefs.T`` of shape ``[..., 20] x [20, N] ->
-[..., N]`` — MXU/VPU-friendly dense math instead of a scalar per-object loop.
+[..., N]`` — dense vector math instead of a scalar per-object loop.
 
 The expansion table is generated from the monomial exponents via the binomial
 theorem at import time, which provably matches the reference's macro algebra
@@ -113,10 +113,10 @@ def ray_poly_coeffs(coefs, origin, dir):
       (surface_impl.h:44-103) for all ray x object pairs.
     """
     b3, b2, b1, b0 = ray_basis(origin, dir)
-    # Full-f32 contraction: the default matmul precision on TPU (and on this
-    # stack's CPU lowering) truncates f32 operands to bf16 passes, which is
-    # catastrophic for the root solve's cancellation-heavy coefficients —
-    # observed as wholesale hit/miss flips. HIGHEST forces true f32 dots.
+    # Full-f32 contraction: a reduced default matmul precision (TF32 on the
+    # GPU, bf16 passes on some CPU lowerings) is catastrophic for the root
+    # solve's cancellation-heavy coefficients — observed as wholesale
+    # hit/miss flips. HIGHEST forces true f32 dots.
     contract = partial(
         jnp.einsum, "...m,nm->...n", precision=jax.lax.Precision.HIGHEST
     )

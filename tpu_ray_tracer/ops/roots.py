@@ -2,7 +2,7 @@
 
 Re-implements the reference's ``intersect_ray`` root-finding tail
 (reference: include/surface_impl.h:106-154) as masked vector math so one
-call solves every (ray, object) pair at once on the VPU:
+call solves every (ray, object) pair at once:
 
 * degree 3 (|t3| > EPS): depressed-cubic Cardano when the discriminant is
   positive (single real root, returned unconditionally even if negative —

@@ -1,10 +1,10 @@
 """Multi-host initialization and mesh construction.
 
 The reference is strictly single-GPU/single-process (SURVEY.md §2.2). The
-TPU-native scaling path spans hosts: ``jax.distributed`` brings up the
-process group (ICI within a slice, DCN across slices), and the pixel-row
-mesh then spans every chip in the job. Scene tables stay replicated; the
-only cross-host traffic is the inverse renderer's gradient ``psum``.
+multi-process scaling path spans hosts: ``jax.distributed`` brings up the
+process group, and the pixel-row mesh then spans every device in the job.
+Scene tables stay replicated; the only cross-host traffic is the inverse
+renderer's gradient ``psum``.
 
 On a single host (or under the CPU device-count simulation used in CI) these
 helpers degrade to the local device list.
@@ -26,8 +26,8 @@ def initialize_distributed(coordinator_address: str | None = None,
                            process_id: int | None = None) -> None:
     """Initialize ``jax.distributed`` when running multi-process.
 
-    All arguments default from the standard environment (TPU pod metadata or
-    ``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/``JAX_PROCESS_ID``);
+    All arguments default from the standard environment
+    (``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/``JAX_PROCESS_ID``);
     a single-process run is a no-op.
     """
     num_processes = num_processes or int(os.environ.get("JAX_NUM_PROCESSES", "1"))
@@ -44,9 +44,9 @@ def initialize_distributed(coordinator_address: str | None = None,
 
 
 def global_pixel_mesh() -> Mesh:
-    """1-D mesh over every chip in the job (all hosts), for pixel-row
-    sharding. Device order follows ``jax.devices()`` so ICI neighbors stay
-    adjacent within a host's chips."""
+    """1-D mesh over every device in the job (all hosts), for pixel-row
+    sharding. Device order follows ``jax.devices()``, so each process's
+    devices are contiguous."""
     return Mesh(np.asarray(jax.devices()), (AXIS,))
 
 

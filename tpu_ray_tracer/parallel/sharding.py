@@ -2,13 +2,13 @@
 
 The reference's only parallelism is single-GPU SIMT (one CUDA thread per
 pixel, 8x8 blocks — reference: src/update-cuda.cu:104-109, 162-163). The
-TPU-native scaling model (SURVEY.md §2.2):
+multi-device scaling model (SURVEY.md §2.2):
 
 * **Data parallel over pixels**: the image's row axis is sharded across a 1-D
   ``jax.sharding.Mesh`` axis ``"px"``; every device renders its row block.
   Rays are embarrassingly parallel and share only the (small) scene tables.
 * **Scene replicated**: the object/light pytree is broadcast to all devices.
-* **Collectives ride ICI**: the only cross-device traffic is the gradient
+* **Collectives are tiny**: the only cross-device traffic is the gradient
   all-reduce of scene parameters in inverse rendering (a ``psum`` inserted
   by AD through ``shard_map``) and the optional framebuffer gather for
   host output. Forward rendering is collective-free.
@@ -48,7 +48,7 @@ def padded_rows(height: int, n_devices: int) -> int:
 
 def render_image_sharded(scene: Scene, camera: camera_ops.Camera, mesh: Mesh,
                          config: RenderConfig = RenderConfig(),
-                         backend: str = "pallas"):
+                         backend: str | None = None, interpret: bool = False):
     """Render with rows sharded over `mesh`; returns [H, W, 3] f32 laid out
     row-sharded (callers can ``jax.device_get`` for a host copy).
 
@@ -57,9 +57,15 @@ def render_image_sharded(scene: Scene, camera: camera_ops.Camera, mesh: Mesh,
     device kernel IS the parallel path, as in the reference's CUDA grid
     (src/update-cuda.cu:104-163).
 
-    backend: "pallas" (default) runs the fused tile kernel per device
-    (Mosaic on TPU, interpreter on CPU meshes); "xla" runs the jnp pipeline.
+    backend: None asks ``render/route.py`` for the forward route of the
+    mesh's platform; "pallas" runs the fused kernel per device (``interpret``
+    runs it in the Pallas interpreter, for tests on CPU meshes); "xla" runs
+    the jnp pipeline.
     """
+    if backend is None:
+        from ..render.route import FORWARD, choose_route
+        backend = choose_route(FORWARD,
+                               platform=mesh.devices.flat[0].platform)
     if backend not in ("pallas", "xla"):
         raise ValueError(f"unknown backend {backend!r}")
     n_dev = mesh.shape[AXIS]
@@ -69,27 +75,21 @@ def render_image_sharded(scene: Scene, camera: camera_ops.Camera, mesh: Mesh,
     dtype = config.dtype
     scene = scene.astype(dtype)
     camera = jax.tree.map(lambda x: jnp.asarray(x, dtype), camera)
+    statics = None
     if backend == "pallas":
         # degree partition + light kinds need concrete scene tables:
         # host-side, shared by every device (static data compiled in)
-        from ..render.pallas_backend import (
-            light_kinds_for_scene, partition_for_scene, posdef_for_scene,
-        )
-        perm, n_cubic = partition_for_scene(scene)
-        kinds = light_kinds_for_scene(scene)
-        posdef = posdef_for_scene(scene)
-    else:
-        perm, n_cubic, kinds, posdef = None, None, None, None
+        from ..render.pallas_backend import scene_statics
+        statics = scene_statics(scene)
 
     # One compiled executable per (mesh, geometry, statics) class: building
     # jax.jit(shard_map(...)) per call would RETRACE AND RECOMPILE every
     # frame (and closing over the camera would bake it in as a constant,
     # defeating the cache for moving cameras — found via the weak-scaling
     # sanity test, r4).
-    from ..render.pallas_backend import _knobs_key
     key = (mesh, backend, rows_local, height_padded, scene.width,
            scene.height, bounces, config.polish_iters, str(dtype),
-           perm, n_cubic, kinds, posdef, _knobs_key())
+           statics, interpret)
     fn = _SHARD_RENDER_CACHE.get(key)
     if fn is None:
         def device_program(scene_local: Scene, camera):
@@ -100,8 +100,7 @@ def render_image_sharded(scene: Scene, camera: camera_ops.Camera, mesh: Mesh,
                 return render_rows_pallas(
                     scene_local, camera, y0, rows_local,
                     polish_iters=config.polish_iters, bounces=bounces,
-                    n_cubic=n_cubic, perm=perm, light_kinds=kinds,
-                    posdef=posdef,
+                    statics=statics, interpret=interpret,
                 )
             rotation, eye = camera_ops.camera_frame(camera)
             dirs = camera_ops.pixel_directions(

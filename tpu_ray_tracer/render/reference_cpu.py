@@ -2,7 +2,7 @@
 
 This module plays the role of the reference's serial CPU backend
 (reference: src/update-cpu.cpp): an independent implementation of the same
-per-pixel program, used as the parity oracle the TPU path is tested against —
+per-pixel program, used as the parity oracle the fast paths are tested against —
 mirroring the reference's own CPU/CUDA cross-validation pairing (SURVEY.md §4).
 
 It shares only the *data conventions* with the JAX path (the 20-coefficient

@@ -1,5 +1,5 @@
 """Interactive terminal viewer: the reference's GLFW window + fly camera
-(reference: src/ray-tracer.cpp) re-imagined for headless TPU hosts.
+(reference: src/ray-tracer.cpp) re-imagined for headless hosts.
 
 Renders frames through any backend and displays them as 24-bit ANSI
 half-block cells (two pixels per character row), with the reference's

@@ -36,3 +36,22 @@ class FrameTimer:
 def mrays_per_s(n_pixels: int, seconds: float) -> float:
     """Primary rays per second in millions (BASELINE.md derived metric)."""
     return n_pixels / seconds / 1e6 if seconds > 0 else 0.0
+
+
+def time_frames(render, cameras, windows: int = 5):
+    """Per-frame time of ``render`` on the device: one warm-up frame, then
+    ``windows`` timed windows, each enqueueing one frame per camera and
+    ending in ``block_until_ready`` on all of them. Returns (median
+    seconds per frame, every window's seconds per frame)."""
+    import statistics
+
+    import jax
+
+    jax.block_until_ready(render(cameras[0]))
+    per_frame = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        outs = [render(c) for c in cameras]
+        jax.block_until_ready(outs)
+        per_frame.append((time.perf_counter() - t0) / len(cameras))
+    return statistics.median(per_frame), per_frame
